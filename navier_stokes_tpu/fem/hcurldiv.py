@@ -1,6 +1,6 @@
 """H(curl,div) matrix-valued stress elements (2D) for the MCS method.
 
-TPU-native replacement for NGSolve's HCurlDiv space, used by the reference's
+Array-based replacement for NGSolve's HCurlDiv space, used by the reference's
 MCS Stokes family (/root/reference/discretizations.py:81-88,
 /root/reference/stokes_hcurldiv.py:18-24) and at the heart of the
 NavierStokes MCS discretization

@@ -1,6 +1,6 @@
 """H(curl,div) matrix-valued stress elements on tetrahedra for 3D MCS.
 
-3D counterpart of fem/hcurldiv.py — the TPU-native replacement for
+3D counterpart of fem/hcurldiv.py — the array-based replacement for
 NGSolve's HCurlDiv space on tets, consumed by the dimension-generic MCS
 NavierStokes (/root/reference/templates/NavierStokesSIMPLE_iterative.py:27:
 ``Sigma = HCurlDiv(mesh, order=order-1, orderinner=order,

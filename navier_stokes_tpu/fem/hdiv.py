@@ -1,6 +1,6 @@
 """H(div)-conforming vector elements (BDM/RT) and tangential facet spaces.
 
-TPU-native replacement for NGSolve's HDiv / VectorFacet (TangentialFacet)
+Array-based replacement for NGSolve's HDiv / VectorFacet (TangentialFacet)
 spaces consumed by the reference's hybrid-DG Stokes — the *active* benchmark
 configuration "HDG BDM 2" (/root/reference/run.py:277-282,
 /root/reference/discretizations.py:59-78) — and the stepping stone to the

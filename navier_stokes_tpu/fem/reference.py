@@ -1,6 +1,6 @@
 """Reference-element bases (host-side, numpy float64).
 
-TPU-native replacement for NGSolve's C++ finite-element shape functions
+Array-based replacement for NGSolve's C++ finite-element shape functions
 (consumed by /root/reference/discretizations.py and /root/reference/heat.py:34,
 which uses H1 order **10**).  Arbitrary-order scalar Lagrange bases on
 triangles/tetrahedra are built from the orthonormal Dubiner/Koornwinder modal

@@ -1,6 +1,6 @@
 """Function spaces: global dof numbering, element dof tables, boundary masks.
 
-TPU-native replacement for NGSolve's FESpace machinery (SURVEY.md section 2b
+Array-based replacement for NGSolve's FESpace machinery (SURVEY.md section 2b
 row 2; consumed by /root/reference/discretizations.py:6-88 and
 /root/reference/heat.py:34).  A space is a frozen host-side object whose only
 products are static integer tables (element_dofs), boolean masks (free dofs),

@@ -1,11 +1,9 @@
-"""Small dense solves that work on TPU in float64.
+"""Small dense solves in float64.
 
-TPU XLA implements LU decomposition only for f32/c64; the reference-parity
-paths need f64 small solves (the 5x5 projected evolution matrix of the heat
-integrator, heat.py:120-124, and the s*m x s*m Gauss-IRK stage system,
-runge_kutta_method.py:44-45).  ``dense_solve`` factorizes in f32 and
-recovers f64 accuracy with iterative refinement (f64 matmuls are supported);
-on CPU (or for f32 inputs) it's a plain jnp.linalg.solve.
+The reference-parity paths need f64 small solves (the 5x5 projected
+evolution matrix of the heat integrator, heat.py:120-124, and the
+s*m x s*m Gauss-IRK stage system, runge_kutta_method.py:44-45); XLA's LU
+(cuSOLVER on a GPU) factorizes them natively in f64.
 """
 
 from __future__ import annotations
@@ -14,20 +12,6 @@ import jax
 import jax.numpy as jnp
 
 
-def dense_solve(A: jax.Array, b: jax.Array, refinements: int = 3) -> jax.Array:
-    """Solve A x = b for small dense A, f64-safe on TPU."""
-    if A.dtype != jnp.float64 or jax.default_backend() != "tpu":
-        return jnp.linalg.solve(A, b)
-    A32 = A.astype(jnp.float32)
-    lu, piv = jax.scipy.linalg.lu_factor(A32)
-
-    def solve32(r):
-        return jax.scipy.linalg.lu_solve(
-            (lu, piv), r.astype(jnp.float32)
-        ).astype(jnp.float64)
-
-    x = solve32(b)
-    for _ in range(refinements):
-        r = b - A @ x if b.ndim == 1 else b - A @ x
-        x = x + solve32(r)
-    return x
+def dense_solve(A: jax.Array, b: jax.Array) -> jax.Array:
+    """Solve A x = b for small dense A."""
+    return jnp.linalg.solve(A, b)

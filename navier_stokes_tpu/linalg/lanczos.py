@@ -10,7 +10,7 @@ Full reorthogonalization is essential: the plain three-term recurrence loses
 orthogonality once Ritz values converge and can report spurious (even
 negative) lambda_min, which poisons the Bramble-Pasciak scaling.  The basis
 is kept in two (m, n) buffers so each reorthogonalization is two matmuls
-(MXU work) inside a lax.fori_loop — a small compile graph, unlike an
+(matrix-unit work) inside a lax.fori_loop — a small compile graph, unlike an
 unrolled O(m^2) chain of dots.
 """
 
@@ -76,8 +76,9 @@ def lanczos_eigenvalues(A, pre, example_vec, iterations: int = 40, key=None):
         # are zero so they contribute nothing.  Two passes ("twice is
         # enough"): one classical Gram-Schmidt pass degrades to O(1e-7)
         # orthogonality within ~20 iterations and garbage Ritz values by 50.
-        # HIGHEST precision: TPU f32 matmuls default to bf16 multiplication,
-        # which destroys the orthogonalization (and the Ritz values with it)
+        # HIGHEST precision: a reduced-precision f32 matmul (bf16 or TF32
+        # multiplication) destroys the orthogonalization (and the Ritz
+        # values with it)
         hp = jax.lax.Precision.HIGHEST
         for _ in range(2):
             proj = jnp.matmul(Vb, w, precision=hp)

@@ -1,6 +1,6 @@
 """Unstructured simplicial mesh with named boundaries (host-side numpy).
 
-TPU-native replacement for the Netgen mesh objects the reference consumes
+Array-based replacement for the Netgen mesh objects the reference consumes
 (/root/reference/run.py:22-29, /root/reference/heat.py:31).  A mesh is a frozen
 set of static integer/float tables: points, elements, edge/face/facet
 connectivity, and boundary-name tags.  Everything downstream (dof maps, basis

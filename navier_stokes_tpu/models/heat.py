@@ -6,7 +6,7 @@ the Krylov-subspace exponential integrator with an order-10 (5-stage... the
 reference uses deg=10 stages) Gauss collocation method, validated against the
 exact eigenfunction-decay solution.
 
-TPU design: assembly happens once; each large time step is one jitted
+Device design: assembly happens once; each large time step is one jitted
 function (inner CG solves as lax.while_loop); the whole time loop is a
 lax.scan.  The convergence study sweeps time-step sizes and writes the
 reference's heat_errors.csv schema (heat.py:161-167).
@@ -184,9 +184,10 @@ def heat_convergence_study(
 ):
     """The heat.py:151-167 convergence study: L2 error vs time step.
 
-    Writes the reference CSV schema (columns time_step, error).
+    Writes the reference CSV schema (columns time_step, error) and
+    returns its rows.
     """
-    import pandas as pd
+    from ..utils.csvio import write_rows
 
     if time_steps is None:
         time_steps = np.logspace(-1, -4, num=7).tolist()
@@ -196,8 +197,7 @@ def heat_convergence_study(
     for ts in time_steps:
         T, final_time = model.solve(initial, end_time, ts)
         err = model.l2_error(T, exact_solution(kl, final_time))
-        rows.append(pd.DataFrame({"time_step": ts, "error": err}, index=[0]))
-    errors = pd.concat(rows, ignore_index=True)
+        rows.append({"time_step": ts, "error": float(err)})
     if data_file:
-        errors.to_csv(data_file)
-    return errors
+        write_rows(data_file, rows)
+    return rows

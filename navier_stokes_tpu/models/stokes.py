@@ -244,16 +244,16 @@ def run(
     profiling_enabled: bool = False,
     mesh_factory=None,
 ):
-    """Sweep harness with the exact CSV schema of run.py:227-262."""
-    import pandas as pd
-
+    """Sweep harness with the exact CSV schema of run.py:227-262; returns
+    the rows it wrote."""
     from ..mesh.generators import channel_with_cylinder_mesh
+    from ..utils.csvio import write_rows
     from ..utils.profiling import maybe_profile
 
     if mesh_factory is None:
         mesh_factory = channel_with_cylinder_mesh
 
-    error_frames = []
+    rows = []
     for mesh_size in mesh_sizes:
         mesh = mesh_factory(mesh_size)
         for method_name, method_map in methods.items():
@@ -268,26 +268,24 @@ def run(
                         _, _, errors, solver_time, ndofs = solve_method(
                             mesh, discretization, solver
                         )
-                    error_frames.append(
-                        pd.DataFrame(
-                            {
-                                "mesh_size": mesh_size,
-                                "discretization": disc_name,
-                                "order": order,
-                                "solver": solver_name,
-                                "iteration": range(len(errors)),
-                                "error": errors,
-                                "solver_time": solver_time,
-                                "nvertices": mesh.nv,
-                                "nedges": mesh.nedge,
-                                "nfaces": mesh.nface,
-                                "nfacets": mesh.nfacet,
-                                "nelements": mesh.ne,
-                                "ndofs": ndofs,
-                                "method": method_name,
-                            }
-                        )
+                    rows.extend(
+                        {
+                            "mesh_size": mesh_size,
+                            "discretization": disc_name,
+                            "order": order,
+                            "solver": solver_name,
+                            "iteration": it,
+                            "error": float(err),
+                            "solver_time": solver_time,
+                            "nvertices": mesh.nv,
+                            "nedges": mesh.nedge,
+                            "nfaces": mesh.nface,
+                            "nfacets": mesh.nfacet,
+                            "nelements": mesh.ne,
+                            "ndofs": ndofs,
+                            "method": method_name,
+                        }
+                        for it, err in enumerate(errors)
                     )
-    data = pd.concat(error_frames, ignore_index=True)
-    data.to_csv(data_file)
-    return data
+    write_rows(data_file, rows)
+    return rows

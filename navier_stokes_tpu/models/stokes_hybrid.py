@@ -222,7 +222,7 @@ def assemble_hdg_stokes_curved(
 
     The reference curves the cylinder to order 3 for every benchmark
     (/root/reference/run.py:28); straight-sided Piola elements solve a
-    perturbed geometry (VERDICT.md round-2 item 5).  With a non-affine map
+    perturbed geometry.  With a non-affine map
     x(xhat) the Piola value is u = J(xhat) uhat / detJ(xhat) and its
     gradient picks up geometry-curvature terms
 

@@ -1,7 +1,7 @@
-// meshkit: native setup-time kernels for the TPU FEM runtime.
+// meshkit: native setup-time kernels for the FEM runtime.
 //
 // The reference delegates its mesh/dof/preconditioner setup to the NGSolve
-// C++ library (SURVEY.md section 2b).  The TPU compute path is JAX/XLA; the
+// C++ library (SURVEY.md section 2b).  The device compute path is JAX/XLA; the
 // host-side runtime around it uses these C++ kernels for the setup
 // hotspots that are loop-bound in Python:
 //

@@ -1,10 +1,10 @@
 """Batched FEM assembly and matrix-free operator applies (pure JAX).
 
-TPU-native replacement for NGSolve's C++ symbolic-form assembly (SURVEY.md
+Batched replacement for NGSolve's C++ symbolic-form assembly (SURVEY.md
 section 2b row 3, consumed at e.g. /root/reference/run.py:77-97 and
 /root/reference/heat.py:43-61).  Element-local matrices are computed as one
-batched einsum over all elements — dense (nq x nb) basis tables contracted on
-the MXU — and operators are applied matrix-free as gather -> batched local
+batched einsum over all elements — dense (nq x nb) basis tables contracted in
+one batched product — and operators are applied matrix-free as gather -> batched local
 matvec -> scatter-add, which keeps every Krylov iteration a fixed-shape jitted
 program with zero host round-trips.
 """
@@ -150,19 +150,10 @@ def scatter_add(local: jax.Array, eldofs: jax.Array, ndof: int) -> jax.Array:
 
 def apply_local_matrices(
     a_local: jax.Array, eldofs: jax.Array, ndof: int, u: jax.Array,
-    use_pallas: bool = False,
 ) -> jax.Array:
-    """y = A u with A given by per-element dense blocks (gather-einsum-scatter).
-
-    ``use_pallas`` routes the batched local matvec through the Pallas tile
-    kernel (ops.pallas_kernels); the XLA einsum is the default."""
+    """y = A u with A given by per-element dense blocks (gather-einsum-scatter)."""
     ue = u[eldofs]
-    if use_pallas:
-        from .pallas_kernels import batched_local_matvec
-
-        ye = batched_local_matvec(a_local, ue)
-    else:
-        ye = jnp.einsum("eij,ej->ei", a_local, ue)
+    ye = jnp.einsum("eij,ej->ei", a_local, ue)
     return jnp.zeros(ndof, ye.dtype).at[eldofs].add(ye)
 
 

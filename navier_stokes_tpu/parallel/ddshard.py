@@ -304,7 +304,7 @@ def build_dd_operator(
 def sharded_flagship_solve(ns, mesh: Mesh, tol: float = 1e-8,
                            maxsteps: int = 4000, axis: str = "shard"):
     """Full Bramble-Pasciak SolveInitial of the flagship MCS model with
-    dof-SHARDED vectors (VERDICT.md round-2 item 7).
+    dof-SHARDED vectors.
 
     A / B / B^T and the vertex-star block smoother all run through
     ``build_dd_operator`` (interface-packed halo exchange); Krylov dots and

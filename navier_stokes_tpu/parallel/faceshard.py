@@ -5,7 +5,7 @@ SPLIT f32 operators with scatter-free face-block applies, the skeleton
 edge-star smoother + vector-P1 aux-space coarse correction, MINRES
 refinement passes) ran single-device only; the sharded path
 (parallel/ddshard.py) still solved with round-1-era plain f64 BPCG over
-dof-granular halo exchanges (VERDICT.md round-3 weakness 4).
+dof-granular halo exchanges.
 
 This module shards the PRODUCTION algorithm itself.  The unit of
 distribution is the face-major layout of ops/faceblock.py:
@@ -23,7 +23,7 @@ distribution is the face-major layout of ops/faceblock.py:
   foreign-face contributions to their owners,
 * the aux-space coarse correction reduces to the P1 vertex space with a
   ``psum`` (the coarse residual is tiny) and solves it REPLICATED on every
-  shard — the standard TPU treatment of a coarse problem.
+  shard — the standard data-parallel treatment of a coarse problem.
 
 Vectors stay FLAT: a sharded velocity is (n_shards * nloc,) with per-shard
 block [own face rows | own element interiors], a sharded pressure is
@@ -970,9 +970,10 @@ def sharded_fast_flagship_solve(ns, mesh: Mesh, tol: float = 1e-8,
                                 max_refine: int = 8,
                                 axis: str = "shard",
                                 gs: bool = True,
-                                two_phase: bool = True):
+                                two_phase: bool = True,
+                                abs_test: bool = False):
     """SolveInitial of the flagship MCS model with the PRODUCTION fast
-    path sharded (VERDICT.md round-3 item 4): split-f32 equilibrated
+    path sharded: split-f32 equilibrated
     operators, scatter-free face-block applies, skeleton smoother +
     aux-space coarse, f32 MINRES refinement passes — the same
     mixed_precision refinement drivers as the single-device solve, on
@@ -983,7 +984,7 @@ def sharded_fast_flagship_solve(ns, mesh: Mesh, tol: float = 1e-8,
     correction system with f32 preconditioner casts
     (mixed_precision_minres_refinement_2phase), so the sharded path
     certifies the full production tolerance 1e-8 rather than the ~4e-7
-    f32 floor (VERDICT round-4 weak 5).
+    f32 floor.
 
     Returns ((x_u, x_p) global, rel_residual, passes, total_inner, plan);
     ``passes`` is (p1, p2) when two_phase else a single int.
@@ -992,6 +993,7 @@ def sharded_fast_flagship_solve(ns, mesh: Mesh, tol: float = 1e-8,
         mixed_precision_minres_refinement,
         mixed_precision_minres_refinement_2phase,
     )
+    from ..utils.jaxtools import hoisted_jit
 
     ops32, ops64, D_sh, plan, aux = build_sharded_fast_ops(ns, mesh,
                                                            axis=axis, gs=gs)
@@ -1006,21 +1008,26 @@ def sharded_fast_flagship_solve(ns, mesh: Mesh, tol: float = 1e-8,
         jnp.asarray(plan.p_to_sharded(g_mod, aux["mQ"])).reshape(
             n_shards, -1), shard_spec).reshape(-1)
 
+    # hoisted_jit: the sharded operator tables stay runtime arguments (as
+    # closure constants they made a multi-GB executable); the output
+    # shardings are given, not read back from the executable
+    out_sh = ((shard_spec, shard_spec),) + (NamedSharding(mesh, P()),) * 3
     if two_phase:
-        x, r, steps, inner = jax.jit(
+        x, r, steps, inner = hoisted_jit(
             lambda f, g: mixed_precision_minres_refinement_2phase(
                 ops64, ops32, D_sh, f, g, tol=tol, inner_tol=inner_tol,
                 inner_maxsteps=inner_maxsteps, max_refine=max_refine,
-            )
+                abs_test=abs_test,
+            ), f_sh, g_sh, out_shardings=out_sh,
         )(f_sh, g_sh)
         steps = (int(steps[0]), int(steps[1]))
     else:
-        x, r, steps, inner = jax.jit(
+        x, r, steps, inner = hoisted_jit(
             lambda f, g: mixed_precision_minres_refinement(
                 ops64, ops32, D_sh, f, g, tol=tol, inner_tol=inner_tol,
                 inner_maxsteps=inner_maxsteps, max_refine=max_refine,
-                abs_test=False,
-            )
+                abs_test=abs_test,
+            ), f_sh, g_sh, out_shardings=out_sh,
         )(f_sh, g_sh)
         steps = int(steps)
     x_u = plan.vel_to_global(np.asarray(x[0]))

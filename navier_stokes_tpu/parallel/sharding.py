@@ -1,7 +1,7 @@
 """Multi-chip execution: element-sharded operators + batch-sharded sweeps.
 
 The reference has no distributed execution at all (SURVEY.md section 2c); its
-only parallelism is NGSolve's shared-memory TaskManager.  The TPU-native
+only parallelism is NGSolve's shared-memory TaskManager.  The device-mesh
 growth path is:
 
 * **spatial (model) parallelism** — shard the element axis of the batched
@@ -85,8 +85,13 @@ def sharded_local_operator(
 def sharded_batch_step(step_fn, mesh: Mesh, axis: str = "shard"):
     """vmap ``step_fn`` over a leading batch axis sharded across the mesh.
 
-    The TPU-native replacement for the reference's serial parameter sweeps:
-    each device advances its own ensemble member(s)."""
+    The batched replacement for the reference's serial parameter sweeps:
+    each device advances its own ensemble member(s).  The step's tables
+    are hoisted to runtime arguments at the first call (``hoisted_jit``):
+    as constants of the compiled program they would be folded and
+    embedded at compile time."""
+    from ..utils.jaxtools import hoisted_jit
+
     batched = jax.vmap(step_fn)
     sharding = NamedSharding(mesh, P(axis))
 
@@ -94,4 +99,12 @@ def sharded_batch_step(step_fn, mesh: Mesh, axis: str = "shard"):
         batch_u = jax.lax.with_sharding_constraint(batch_u, sharding)
         return batched(batch_u)
 
-    return jax.jit(run)
+    compiled = {}
+
+    def call(batch_u):
+        if "run" not in compiled:
+            compiled["run"] = hoisted_jit(run, batch_u,
+                                          out_shardings=sharding)
+        return compiled["run"](batch_u)
+
+    return call

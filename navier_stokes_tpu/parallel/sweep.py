@@ -3,7 +3,7 @@
 The reference executes its parameter sweeps serially
 (/root/reference/run.py:229-259,
 /root/reference/templates/run_navier_stokes_parameter_sweep.py:49-67).  The
-TPU-native replacement (SURVEY.md section 2c): make the physical parameter
+batched replacement (SURVEY.md section 2c): make the physical parameter
 (viscosity / Reynolds number) a traced argument of the fused time step, vmap
 over the ensemble axis and shard it across the device mesh — one compiled
 program advances the whole ensemble per step, the BASELINE.json config-5

@@ -1,6 +1,6 @@
 """Chebyshev polynomial preconditioner / smoother.
 
-The TPU-native substitute for sequential Gauss-Seidel sweeps (SURVEY.md
+The batched substitute for sequential Gauss-Seidel sweeps (SURVEY.md
 section 7 hard-part 2): a fixed-degree Chebyshev polynomial in a base SPD
 smoother (Jacobi/block-Jacobi) is a LINEAR, SPD operator built purely from
 operator applies — ideal inside jitted Krylov loops, and usable wherever

@@ -4,7 +4,7 @@ Replaces NGSolve's ``Preconditioner(m, 'local')`` (Jacobi, used as the Schur
 preconditioner at /root/reference/run.py:62) and ``CreateBlockSmoother``
 (facet-block smoother, /root/reference/templates/NavierStokesSIMPLE_iterative.py:253,373).
 Block inverses are computed once as a batched ``jnp.linalg.inv`` — elementwise
-dense work that maps straight onto the MXU — and applied as gather->batched
+dense work that maps straight onto the matrix units — and applied as gather->batched
 matvec->scatter.
 """
 
@@ -40,8 +40,8 @@ def block_jacobi(blocks_dofs: np.ndarray, block_mats: jax.Array, ndof: int,
     global operator restricted to each block; padding rows/cols must be
     identity).  Overlapping blocks are summed (additive Schwarz).
 
-    Block inverses are computed on host in float64 (TPU XLA lacks batched
-    f64 LU) and shipped as a device constant.
+    Block inverses are computed on host in float64 and shipped as a device
+    constant.
     """
     inv = jnp.asarray(
         np.linalg.inv(np.asarray(block_mats, np.float64)),

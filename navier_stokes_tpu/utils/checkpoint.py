@@ -1,7 +1,7 @@
 """Checkpoint / resume of solver state.
 
 The reference has no persistence beyond result CSVs (SURVEY.md section 5);
-state lives in in-memory GridFunctions.  Long transients on TPU warrant
+state lives in in-memory GridFunctions.  Long transients on a device warrant
 snapshots: this stores the (velocity, pressure, time, step) state as npz —
 enough to resume DoTimeStep loops bit-for-bit (the state is a plain pytree
 of arrays; no RNG or optimizer state exists in this problem class).

@@ -1,24 +1,57 @@
 """Loader for the native C++ setup kernels (meshkit), with numpy fallback.
 
-Compiles navier_stokes_tpu/native/meshkit.cpp on first use with g++ (cached
-as a .so next to the source) and binds it through ctypes — the native
-runtime layer of the framework (the role NGSolve's C++ core plays for the
-reference, SURVEY.md section 2b), while JAX/XLA remains the device compute
-path.  Every entry point degrades gracefully to numpy/scipy when the
-toolchain is unavailable.
+Compiles navier_stokes_tpu/native/meshkit.cpp on first use with g++ and
+binds it through ctypes — the native runtime layer of the framework (the
+role NGSolve's C++ core plays for the reference, SURVEY.md section 2b),
+while JAX/XLA remains the device compute path.  The library is built into
+``native/_build/`` (listed in ``.gitignore``) under a name keyed on the
+SHA-256 of the source, so an edited source or a fresh checkout always
+rebuilds and a stale binary is never loaded.  Every entry point degrades
+gracefully to numpy/scipy when the toolchain is unavailable.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
+import tempfile
 import warnings
 
 import numpy as np
 
+_NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "native")
+_SRC = os.path.join(_NATIVE_DIR, "meshkit.cpp")
+BUILD_DIR = os.path.join(_NATIVE_DIR, "_build")
+
 _LIB = None
 _TRIED = False
+
+
+def library_path() -> str:
+    """Path of the shared library built from the current source."""
+    with open(_SRC, "rb") as fh:
+        digest = hashlib.sha256(fh.read()).hexdigest()[:16]
+    return os.path.join(BUILD_DIR, f"meshkit_{digest}.so")
+
+
+def _build(so: str) -> None:
+    """Compile to a temporary file in BUILD_DIR, then rename it into place:
+    concurrent first uses (test workers) never load a half-written file."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        subprocess.run(
+            ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", _SRC, "-o", tmp],
+            check=True, capture_output=True,
+        )
+        os.replace(tmp, so)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
 
 
 def _lib():
@@ -26,14 +59,10 @@ def _lib():
     if _TRIED:
         return _LIB
     _TRIED = True
-    src = os.path.join(os.path.dirname(__file__), "..", "native", "meshkit.cpp")
-    so = os.path.join(os.path.dirname(__file__), "..", "native", "_meshkit.so")
     try:
-        if not os.path.exists(so) or os.path.getmtime(so) < os.path.getmtime(src):
-            subprocess.run(
-                ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", src, "-o", so],
-                check=True, capture_output=True,
-            )
+        so = library_path()
+        if not os.path.exists(so):
+            _build(so)
         lib = ctypes.CDLL(so)
         lib.build_edges.restype = ctypes.c_int64
         lib.build_edges.argtypes = [

@@ -2,16 +2,14 @@
 
 Builds the flagship operators at a given maxh on CPU and prints every
 device table's size plus how many times each is streamed per preA apply —
-the per-iteration cost model for the TPU (the preconditioner stream, not
-the A-apply, dominates the phase-1 iteration; NOTES_r3.md item 2).
+the per-iteration bandwidth cost model of the solve (the preconditioner
+stream, not the A-apply, dominates the phase-1 iteration).
 
-Run: BENCH_CPU=1 python scripts/audit_tables.py [maxh]
+Run: python scripts/audit_tables.py [maxh]
 """
 
 import os
 import sys
-
-os.environ.setdefault("BENCH_CPU", "1")
 
 import jax
 
@@ -34,8 +32,7 @@ def main():
     mesh = channel_with_cylinder_mesh_3d(MAXH)
     geo = bench.make_geometry(mesh)
     cache: dict = {}
-    bench.load_disk_cache(cache, f"{MAXH}_{'straight' if geo is None else 'curved'}")
-    m = bench.build(mesh, jnp.float64, "faceblock", cache=cache, geometry=geo)
+    m = bench.build(mesh, jnp.float64, cache=cache, geometry=geo)
 
     lay = FaceBlockLayout(m.Xv)
     ne, nfb, nface = lay.ne, lay.nfb, lay.nface
@@ -77,8 +74,9 @@ def main():
           f"{'':9s} {'':2s} {tot:9.1f}")
     print(f"\nedge-star size histogram: "
           f"{dict(zip(*map(list, np.unique(sizes, return_counts=True))))}")
-    print(f"at 150 GB/s: {tot / 150 / 1024 * 1e3:.2f} ms/it; "
-          f"at 819 GB/s: {tot / 819 / 1024 * 1e3:.2f} ms/it")
+    # H100 SXM memory bandwidth, 3.35 TB/s (NVIDIA's data sheet)
+    print(f"at 3350 GB/s (H100 data sheet): "
+          f"{tot / MB / 3.35e12 * 1e3:.3f} ms/it")
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 """Smoothed-aggregation AMG (precond/amg.py) — the h1amg stand-in.
 
-VERDICT.md round-2 item 6: the coarse level must scale — O(nv) memory and
+The coarse level must scale — O(nv) memory and
 h-independent preconditioned iteration counts, replacing the dense P1
 inverse at large sizes.
 """

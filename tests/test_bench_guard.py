@@ -5,7 +5,7 @@ knobs (GS row-panel sweep, coarse damping target, split-f32 operators,
 adaptive tolerances).  This CPU-measurable guard pins the total inner
 iteration count of the SAME operator/preconditioner stack at a small
 bench config, so a knob or preconditioner regression shows up in CI
-before the driver's hardware bench does (VERDICT.md round-3 item 8).
+before a hardware bench does.
 """
 
 import jax

@@ -53,7 +53,7 @@ def test_curved_stokes_solves(channel):
 
 def test_curved_piola_affine_consistency():
     """Curved HDG assembly with an affine geometry map reproduces the
-    straight-element assembly (VERDICT round-2 item 5)."""
+    straight-element assembly."""
     import numpy as np
     from navier_stokes_tpu.fem.reference import lagrange_triangle
     from navier_stokes_tpu.mesh.curved import CurvedGeometry
@@ -112,8 +112,7 @@ def test_curved_piola_channel_solves():
 
 
 def test_curved_mcs_channel_solves():
-    """The MCS flagship on the order-3 curved cylinder (VERDICT round-2
-    item 5 'Done': HDG + MCS channel solve curved, measured delta)."""
+    """The MCS flagship on the order-3 curved cylinder."""
     import numpy as np
     from navier_stokes_tpu.mesh.curved import curve_to_circle
     from navier_stokes_tpu.mesh.generators import channel_with_cylinder_mesh

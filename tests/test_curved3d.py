@@ -1,6 +1,6 @@
 """3D curved (isoparametric) geometry: mesh.Curve(3) parity on the tet
 channel (/root/reference/templates/NavierStokesSIMPLE_test_3D.py:16 —
-VERDICT round-3 item 5)."""
+the reference's 3D benchmark geometry)."""
 
 import numpy as np
 import pytest

@@ -146,49 +146,54 @@ def test_face_star_smoother_matches_block_jacobi(setup):
     assert float(jnp.linalg.norm(y - y_ref) / jnp.linalg.norm(y_ref)) < 1e-12
 
 
-def test_elem_apply_tiled_interpret(setup):
-    """The TPU tiled (Pallas) apply path — pad/transpose wiring + kernel —
-    matches elem_apply_multi, run in interpret mode on CPU."""
+def _cancelling_split(T64, xe):
+    """Make columns 0 and 1 of every block cancel against the element
+    vector ``xe`` (each element's row sum ~1e-5 of its terms), and split
+    the table into an f32 (hi, lo) pair."""
+    T64 = T64.copy()
+    T64[:, :, 0] *= 1e5
+    T64[:, :, 1] = -T64[:, :, 0] * (xe[:, 0] / xe[:, 1])[:, None]
+    hi = T64.astype(np.float32)
+    lo = (T64 - hi.astype(np.float64)).astype(np.float32)
+    return T64, hi, lo
+
+
+def test_elem_apply_comp_cancellation(setup):
+    """The phase-2 f64 apply of a split (hi, lo) pair keeps f64 accuracy
+    under heavy row cancellation — the failure mode that floors a plain
+    3x-f32 double-single apply near 1e-6 — against a host f64 CSR matvec
+    of the same operator."""
     _, Xv, lay, rng = setup
-    ne, nb = np.asarray(Xv.element_dofs).shape
-    A64 = rng.standard_normal((ne, nb, nb))
-    A_p = lay.permute_blocks(A64)
-    A_hi = A_p.astype(np.float32)
-    A_lo = (A_p - A_hi.astype(np.float64)).astype(np.float32)
-    u = jnp.asarray(rng.standard_normal(Xv.ndof), jnp.float32)
-    want = lay.elem_apply_multi(
-        [(jnp.asarray(A_hi), None), (jnp.asarray(A_lo), None)]
-    )(u)
-    got = lay.elem_apply_tiled([A_hi, A_lo], tile=64, interpret=True)(u)
-    assert float(jnp.linalg.norm(got - want) / jnp.linalg.norm(want)) < 1e-6
-    got1 = lay.elem_apply_tiled([A_hi], tile=64, interpret=True)(u)
-    want1 = lay.elem_apply(jnp.asarray(A_hi))(u)
-    assert float(jnp.linalg.norm(got1 - want1) / jnp.linalg.norm(want1)) < 1e-6
+    ed = np.asarray(Xv.element_dofs)[:, lay.perm]  # face-major columns
+    ne, nb = ed.shape
+    u = rng.standard_normal(Xv.ndof)
+    A64, A_hi, A_lo = _cancelling_split(rng.standard_normal((ne, nb, nb)),
+                                        u[ed])
+    got = np.asarray(lay.elem_apply_comp(A_hi, A_lo)(jnp.asarray(u)))
+    want = asm.assemble_csr(A64, ed, Xv.ndof) @ u
+    scale = asm.assemble_csr(np.abs(A64), ed, Xv.ndof) @ np.abs(u)
+    err = np.abs(got - want) / np.maximum(scale, 1e-300)
+    assert err.max() < 1e-13, err.max()
 
 
-def test_elem_apply_tiled_splitk(monkeypatch):
-    """elem_apply_tiled under NSTPU_SPLITK>1 (interpret mode) matches the
-    einsum apply — both single-table and split hi/lo pair."""
-    mesh = channel_with_cylinder_mesh_3d(0.45)
-    V = HDiv3D(mesh, 2, dirichlet="inlet|wall|cyl")
-    F = VectorFacet3D(mesh, 1, dirichlet="inlet|wall|cyl|outlet")
-    Xv = HybridVelocitySpace3D(V, F)
-    lay = FaceBlockLayout(Xv)
-    rng = np.random.default_rng(21)
-    A64 = rng.standard_normal((lay.ne, lay.nb, lay.nb))
-    A_hi = A64.astype(np.float32)
-    A_lo = (A64 - A_hi.astype(np.float64)).astype(np.float32)
-    u = jnp.asarray(rng.standard_normal(lay.n), jnp.float32)
-    ref1 = lay.elem_apply_multi([(jnp.asarray(A_hi), None)])(u)
-    ref2 = lay.elem_apply_multi(
-        [(jnp.asarray(A_hi), None), (jnp.asarray(A_lo), None)]
-    )(u)
-    for k in ("2", "4"):
-        monkeypatch.setenv("NSTPU_SPLITK", k)
-        got1 = lay.elem_apply_tiled([A_hi], tile=64, interpret=True)(u)
-        got2 = lay.elem_apply_tiled([A_hi, A_lo], tile=64,
-                                    interpret=True)(u)
-        for got, ref in ((got1, ref1), (got2, ref2)):
-            rel = float(jnp.linalg.norm(got - ref)
-                        / jnp.linalg.norm(ref))
-            assert rel < 1e-5, (k, rel)
+def test_rect_apply_comp_cancellation(setup):
+    """(B, BT) of the phase-2 f64 pressure coupling, same cancellation
+    test against host f64 CSR products."""
+    _, Xv, lay, rng = setup
+    ed = np.asarray(Xv.element_dofs)[:, lay.perm]
+    ne, nb = ed.shape
+    m = 4
+    eldofs_p = np.arange(ne * m).reshape(ne, m)
+    u = rng.standard_normal(Xv.ndof)
+    p = rng.standard_normal(ne * m)
+    B64, B_hi, B_lo = _cancelling_split(rng.standard_normal((ne, m, nb)),
+                                        u[ed])
+    B, BT = lay.rect_apply_comp(B_hi, B_lo, eldofs_p, ne * m)
+    Bc = asm.assemble_csr_rect(B64, eldofs_p, ed, ne * m, Xv.ndof)
+    Bs = asm.assemble_csr_rect(np.abs(B64), eldofs_p, ed, ne * m, Xv.ndof)
+    err = np.abs(np.asarray(B(jnp.asarray(u))) - Bc @ u) / np.maximum(
+        Bs @ np.abs(u), 1e-300)
+    assert err.max() < 1e-13, err.max()
+    errT = np.abs(np.asarray(BT(jnp.asarray(p))) - Bc.T @ p) / np.maximum(
+        Bs.T @ np.abs(p), 1e-300)
+    assert errT.max() < 1e-13, errT.max()

@@ -1,6 +1,6 @@
 """Sharded fast-path parity: the production split-f32 solver (face-sharded
 halo-exchange operators, parallel/faceshard.py) against the single-device
-equilibrated operator stack it mirrors (VERDICT.md round-3 item 4)."""
+equilibrated operator stack it mirrors."""
 
 import jax
 import jax.numpy as jnp
@@ -108,8 +108,7 @@ def test_faceshard_solve_matches_single_device():
     the row-panel multicolor-GS skeleton sweep — the bench's algorithm —
     on 8 virtual devices) reaches the same tolerance in the same
     refinement structure as the single-device fast path, with iteration
-    parity up to fp reduction-order drift (VERDICT round-3 item 4
-    done-criterion)."""
+    parity up to fp reduction-order drift."""
     ns = _build_ns(0.35)
     mesh = device_mesh(8)
 
@@ -143,8 +142,8 @@ def test_faceshard_solve_matches_single_device():
 
 
 def test_faceshard_solve_reaches_production_tolerance():
-    """The sharded driver certifies the FULL production tolerance 1e-8
-    (VERDICT round-4 weak 5): split-f32 refinement passes (whose old
+    """The sharded solve certifies the FULL production tolerance 1e-8:
+    split-f32 refinement passes (whose old
     ~4e-7 'floor' was the inner MINRES's absolute stopping test firing on
     the shrinking per-pass rhs — fixed by abs_test=False) chained with the
     phase-2 true-f64 equilibrated correction passes

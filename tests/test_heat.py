@@ -56,7 +56,7 @@ def test_heat_exponential_integrator_convergence():
     Three step sizes and a FITTED slope >= 3, matching the reference's
     own validation lines dt^3/dt^4 (/root/reference/plot_heat.py:13-14) —
     two points cannot distinguish a broken order-2 scheme from the
-    high-order integrator (VERDICT.md round-2 weakness 5)."""
+    high-order integrator."""
     kl = [(1, 1), (2, 1), (1, 3)]
     model = HeatEquation(maxh=0.2, order=8, rk_stages=10)
     init = sum_of_unit_square_laplace_eigenfunctions(kl)

@@ -1,5 +1,7 @@
 """Native C++ meshkit kernels vs numpy/scipy references."""
 
+import os
+
 import numpy as np
 import pytest
 import scipy.sparse as sp
@@ -71,3 +73,19 @@ def test_extract_blocks_matches_scipy():
         for j in range(len(b), 7):
             assert out[i, j, j] == 1.0
             assert np.abs(out[i, j, : j]).max() == 0.0
+
+
+def test_library_is_keyed_on_source_content(monkeypatch, tmp_path):
+    """The built library's name follows the source's content: an edit
+    gives a new name (a rebuild), a touch alone does not."""
+    src = tmp_path / "meshkit.cpp"
+    with open(native._SRC) as fh:
+        src.write_text(fh.read())
+    monkeypatch.setattr(native, "_SRC", str(src))
+    first = native.library_path()
+    os.utime(src, (1, 1))
+    assert native.library_path() == first
+    src.write_text(src.read_text() + "\n// edited\n")
+    second = native.library_path()
+    assert second != first
+    assert os.path.dirname(second) == native.BUILD_DIR

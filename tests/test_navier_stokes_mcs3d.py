@@ -1,6 +1,6 @@
 """3D MCS NavierStokes (the dimension-generic flagship, round 2).
 
-Decisive check (VERDICT.md next-round item 1): the Poiseuille-between-
+Decisive check: the Poiseuille-between-
 plates solution u = (y(1-y),0,0), p = 2nu(1-x) lies exactly in the MCS
 space (BDM_2 x facet_1 x HCurlDiv(2,trace 1) x VectorL2_1 x P1dc), so both
 the direct solve of the condensed system and the BPCG iterative path must
@@ -153,8 +153,7 @@ def _channel3d(maxh=0.35):
 
 def test_mcs_ns_3d_channel_steady():
     """SolveInitial converges on the reference 3D channel geometry
-    (NavierStokesSIMPLE_test_3D.py:8-28) — the VERDICT round-2 item 1
-    'Done' criterion."""
+    (NavierStokesSIMPLE_test_3D.py:8-28)."""
     import jax.numpy as jnp
 
     mesh, uin = _channel3d(0.35)

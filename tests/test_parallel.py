@@ -94,8 +94,7 @@ def test_graft_entry_multichip():
 
 
 def test_sharded_flagship_matches_single_device():
-    """Dof-SHARDED flagship BPCG (halo-exchange operators, VERDICT round-2
-    item 7) reproduces the single-device SolveInitial solution."""
+    """Dof-SHARDED flagship BPCG (halo-exchange operators) reproduces the single-device SolveInitial solution."""
     import jax.numpy as jnp
 
     from navier_stokes_tpu.mesh.generators import channel_with_cylinder_mesh
@@ -127,7 +126,7 @@ def test_sharded_flagship_matches_single_device():
 def test_sharded_flagship_3d_matches_single_device():
     """The 3D flagship (tet MCS channel) through the dof-sharded halo
     machinery — fatter facet halos and the face-block smoother — matches
-    the single-device solve (VERDICT.md round-3 item 6)."""
+    the single-device solve."""
     import jax.numpy as jnp
 
     from navier_stokes_tpu.mesh import channel_with_cylinder_mesh_3d

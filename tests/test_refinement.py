@@ -1,5 +1,5 @@
 """Mixed-precision iterative refinement: reaches f64 residuals with f32
-inner solves (the TPU-native answer to emulated float64)."""
+inner solves (f32 table streams at f64 accuracy)."""
 
 import jax
 import jax.numpy as jnp

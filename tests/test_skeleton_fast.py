@@ -69,8 +69,7 @@ def test_skeleton_fast_matches_slow(model, gs):
 @pytest.mark.parametrize("gs", [False, True])
 def test_auxspace3d_gs_builder(model, gs):
     """build_auxspace_preconditioner_3d's gs=True path builds and yields a
-    symmetric operator that contracts the A-residual (ADVICE.md round 2:
-    the advertised gs=True API used to reference an undefined variable)."""
+    symmetric operator that contracts the A-residual."""
     from navier_stokes_tpu.models.auxspace3d import (
         build_auxspace_preconditioner_3d,
     )
